@@ -1,12 +1,10 @@
 """Scaling-efficiency harness: frames/s per sequence at N vs 1 sequences.
 
-The BASELINE.json north star demands >= 70% frames/s scaling efficiency at
-N >= 2 devices. Real multi-chip hardware is not attached in this image, so
-this harness measures whatever mesh exists:
+Measures whatever mesh exists:
 
-- on a TPU pod slice: N sequences across N chips (the real metric);
-- on 1 chip: N sequences on one chip — the intra-chip batching curve (an
-  upper bound on the work the chip has headroom for);
+- on N GPUs: N sequences across N cards (the real metric);
+- on 1 GPU: N sequences on one card — the intra-card batching curve (an
+  upper bound on the work the card has headroom for);
 - on CPU (JAX_PLATFORMS=cpu + xla_force_host_platform_device_count=8): the
   full plumbing, so the day multi-chip hardware exists this one command
   produces the number.
@@ -75,9 +73,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/rslam_jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from racing_slam_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     from jax.sharding import Mesh
 

@@ -1,6 +1,6 @@
 // Native asynchronous video loader for racing_slam_tpu.
 //
-// TPU-native counterpart of the reference's VideoLoader
+// Counterpart of the reference's VideoLoader
 // (src/VideoLoader.{h,cpp}, a synchronous cv::VideoCapture wrapper): decode
 // runs on a dedicated thread filling a bounded ring buffer of grayscale
 // frames, so host-side decode fully overlaps device compute. Exposed with a

@@ -1,12 +1,12 @@
-"""racing_slam_tpu — a TPU-native monocular SLAM engine.
+"""racing_slam_tpu — a monocular SLAM engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-GregVS/Racing-SLAM (C++/OpenCV/Ceres reference at /root/reference):
+GregVS/Racing-SLAM (a C++/OpenCV/Ceres reference):
 
 - ``ops``      : pure-JAX geometry + matching compute kernels (SE3, projection,
                  batched DLT triangulation, essential matrix + vmapped RANSAC,
                  dense masked feature matching, Schur-complement LM bundle
-                 adjustment, Pallas TPU kernels for the hot paths).
+                 adjustment, Pallas GPU kernels for the hot paths).
 - ``slam``     : fixed-capacity SoA pytree world state (frames / map points /
                  observations) and the host-side pipeline orchestrator
                  (two-view init, per-frame tracking, keyframing, culling).

@@ -82,7 +82,7 @@ def init_params(key: jax.Array, desc_dim: int = DESC_DIM) -> SuperPointParams:
 def _conv(x, w, b, stride=1, compute_dtype=None):
     """x: [H, W, C]; w: [k, k, cin, cout] (HWIO).
 
-    compute_dtype=bfloat16 runs the conv as a bf16 MXU pass with f32
+    compute_dtype=bfloat16 runs the conv with bf16 operands and f32
     accumulation — inference-only (extract): the backbone is ~40 GFLOP/frame
     at 640x480 and was the learned path's dominant per-frame cost in f32.
     Training keeps f32 (gradients through bf16 convs quantize noisily)."""
@@ -103,8 +103,7 @@ def _conv(x, w, b, stride=1, compute_dtype=None):
 def _pool2(x):
     """Non-overlapping 2x2 max pool as reshape+max. Identical forward to
     reduce_window max, but its GRADIENT lowers to ordinary equality/select
-    ops — reduce_window's backward is a select-and-scatter that XLA:TPU does
-    not implement, which previously forced SuperPoint training onto CPU."""
+    ops instead of reduce_window's select-and-scatter backward."""
     H, W, C = x.shape
     Hp, Wp = H - (H % 2), W - (W % 2)
     x = x[:Hp, :Wp]
@@ -266,8 +265,7 @@ class SuperPointFrontend:
 
     def extract(self, img: jnp.ndarray, mask: jnp.ndarray | None = None) -> Features:
         # Inference runs the conv stack in bf16 with f32 accumulation (the
-        # MXU's native mode; ~2x the f32 conv throughput and half the HBM
-        # traffic). Keypoint selection / subpixel refinement / descriptor
+        # tensor cores' native mode; half the memory traffic of f32). Keypoint selection / subpixel refinement / descriptor
         # normalization stay f32: the heatmap parabola fit and unit-norm
         # descriptors are where rounding would actually surface.
         feat = backbone(self.params, img, compute_dtype=jnp.bfloat16)

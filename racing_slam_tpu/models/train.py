@@ -27,7 +27,7 @@ from pathlib import Path
 import jax
 
 # --cpu must take effect BEFORE the model-module imports below: one of them
-# creates device constants at import time, which locks in the default (TPU)
+# creates device constants at import time, which locks in the default
 # backend; jax.config.update in main() would then be too late.
 if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
@@ -462,7 +462,7 @@ def train_lightglue_frontend(steps: int = 400, **kw) -> lightglue.LightGlueParam
     from ..slam.frontend import ClassicalFrontend
 
     return train_lightglue_on_frontend(
-        ClassicalFrontend(backend="xla"), steps=steps, **kw
+        ClassicalFrontend(), steps=steps, **kw
     )
 
 
@@ -531,7 +531,7 @@ def eval_lightglue_on_frontend(
 def eval_lightglue_frontend(params, **kw):
     from ..slam.frontend import ClassicalFrontend
 
-    return eval_lightglue_on_frontend(params, ClassicalFrontend(backend="xla"), **kw)
+    return eval_lightglue_on_frontend(params, ClassicalFrontend(), **kw)
 
 
 def eval_lightglue_superpoint(params, superpoint_weights=None, **kw):
@@ -578,9 +578,7 @@ def main(argv=None):
     p.add_argument(
         "--cpu", action="store_true",
         help="force the CPU backend (the env var is too late once jax is "
-             "imported; SuperPoint's pooling gradient lowers to a "
-             "select-and-scatter XLA:TPU does not implement, so its "
-             "training currently needs CPU)",
+             "imported)",
     )
     args = p.parse_args(argv)
     if args.cpu and jax.default_backend() != "cpu":

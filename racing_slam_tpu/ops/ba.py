@@ -1,6 +1,6 @@
 """Levenberg-Marquardt bundle adjustment with explicit Schur complement.
 
-TPU-native replacement for the reference's Ceres solve
+Static-shape replacement for the reference's Ceres solve
 (src/Optimization.cpp:83-186, SPARSE_SCHUR, <=10 iterations). Design:
 
 - Residual IDENTICAL to the reference (src/Optimization.cpp:24-43):
@@ -38,14 +38,15 @@ import jax.numpy as jnp
 
 from . import se3
 from .camera import Camera
+from .pallas import resolve_backend
 from .precision import f32_precision
 
 HUBER_DELTA = float(jnp.sqrt(5.991))  # Optimization.cpp:136
 MAX_ITERS = 10  # Optimization.cpp:153
 # Ceres Solver::Options::function_tolerance default — LM stops once an
 # accepted step improves the cost by less than this fraction. The reference
-# relies on it implicitly (it never overrides the default); on TPU it turns
-# the fixed 10-iteration scan into a while_loop that typically exits in 3-5.
+# relies on it implicitly (it never overrides the default); it turns the
+# fixed 10-iteration loop into a while_loop that typically exits in 3-5.
 FUNCTION_TOLERANCE = 1e-6
 
 # NOTE on robust scale: the reference applies HuberLoss(sqrt(5.991)) to a
@@ -113,9 +114,9 @@ def solve6_spd(H: jnp.ndarray, g: jnp.ndarray) -> jnp.ndarray:
     """Solve the (damped, SPD) 6x6 system H x = g in closed form.
 
     jnp.linalg.solve lowers a 6x6 LU with pivoting to a long serial scalar
-    chain — it profiled as a visible slice of every LM iteration of the
-    motion/structure solvers. Block elimination with two closed-form 3x3
-    inverses is a short straight-line program instead:
+    chain (on a GPU, a pivoting LU library call per LM iteration). Block
+    elimination with two closed-form 3x3 inverses is a short straight-line
+    program instead:
         H = [[A, B], [B^T, C]],  S = C - B^T A^-1 B
         x2 = S^-1 (g2 - B^T A^-1 g1),  x1 = A^-1 (g1 - B x2).
     Valid because LM damping keeps H (and hence A and S) positive definite.
@@ -172,24 +173,17 @@ def motion_ba(
       kp_uv: [K, 2] matched keypoint pixels.
       point_xyz: [K, 3] matched map point positions (already gathered).
       valid: [K] bool — row participates.
-      backend: "pallas" = single fused LM-loop kernel (TPU), "xla" = this
-        function's while_loop, "auto" = pallas on TPU else xla.
+      backend: "auto" = the fused single-program Pallas LM loop
+        (ops/pallas/motion_ba_kernel.py) on a GPU, this function's
+        while_loop elsewhere; "pallas" / "xla" force one (see
+        ops.pallas.resolve_backend).
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        from .pallas.motion_ba_kernel import motion_ba_planes, pack_motion_planes
+    if resolve_backend(backend) == "pallas":
+        from .pallas.motion_ba_kernel import motion_ba_fused
 
-        data = pack_motion_planes(cam, kp_uv, point_xyz, valid)
-        pose0 = jnp.concatenate(
-            [
-                rvec.astype(jnp.float32),
-                t.astype(jnp.float32),
-                jnp.asarray([1e-4, 0.0], jnp.float32),
-            ]
-        )
-        out = motion_ba_planes(
-            pose0, data, max_iters, float(huber_delta), FUNCTION_TOLERANCE
+        out = motion_ba_fused(
+            cam, rvec, t, kp_uv, point_xyz, valid, max_iters,
+            float(huber_delta), FUNCTION_TOLERANCE,
         )
         return MotionBAResult(
             rvec=out[:3], t=out[3:6], cost=out[6], num_residuals=jnp.sum(valid)
@@ -316,12 +310,11 @@ def residual_and_jacobians(rv, tt, X, uv, fx, cx, cy):
     Exactly matches jacfwd of _residual_packed (verified in tests) at ~1/6
     the FLOPs — this is the hot inner loop of every LM iteration.
 
-    TPU note: everything is hand-expanded to scalar arithmetic on [...]
-    component vectors. The mathematically identical matrix formulation
-    (R @ hat(X) @ J_r chains over [..., 3, 3]) lowers to batched 3x3
-    dot_generals, which profiled as ~40% of the whole tracking step — tiny
-    contraction dims waste the MXU and the stacked intermediates thrash HBM.
-    The scalar form is pure fused VPU work.
+    Everything is hand-expanded to scalar arithmetic on [...] component
+    vectors. The mathematically identical matrix formulation (R @ hat(X) @
+    J_r chains over [..., 3, 3]) lowers to batched 3x3 dot_generals with
+    tiny contraction dims and stacked intermediates in device memory; the
+    scalar form fuses into elementwise kernels.
     """
     wx, wy, wz = rv[..., 0], rv[..., 1], rv[..., 2]
     Xx, Xy, Xz = X[..., 0], X[..., 1], X[..., 2]
@@ -485,7 +478,7 @@ def build_reduced_system(
 
     Jc_w = Jc * w[..., None, None]  # [P, O, 2, 6]
     # One-hot camera assignment turns every scatter below into an einsum —
-    # the whole Schur assembly becomes MXU matmuls instead of serialized
+    # the whole Schur assembly becomes matmuls instead of serialized
     # scatter-adds (invalid observations have w = 0, so their one-hot target
     # contributes nothing).
     onehot = (safe_cam[..., None] == jnp.arange(F)).astype(jnp.float32)  # [P,O,F]
@@ -493,9 +486,9 @@ def build_reduced_system(
     # Camera blocks, STAGED as (per-observation outer products) @ one-hot:
     # the single 3-operand einsum ("pof,porj,pork->fjk") lets XLA pick a
     # contraction order that materializes a [P, O, F, 2, 6] intermediate —
-    # ~50 MB per LM iteration at bench shapes, the dominant HBM traffic of
-    # the whole solver. Two explicit matmuls keep every intermediate at
-    # [N, 36] (N = P*O) and run on the MXU.
+    # ~50 MB per LM iteration at bench shapes, the dominant device-memory
+    # traffic of the whole solver. Two explicit matmuls keep every
+    # intermediate at [N, 36] (N = P*O).
     N = P * O
     oh_n = onehot.reshape(N, F)
     G = jnp.einsum("nri,nrj->nij", Jc_w.reshape(N, 2, 6), Jc.reshape(N, 2, 6))
@@ -587,7 +580,6 @@ def structure_ba(
     max_iters: int = MAX_ITERS,
     init_lambda: float = 1e-4,
     huber_delta: float = HUBER_DELTA,
-    backend: str = "auto",
 ) -> BAResult:
     """Schur LM specialized to ONE free camera + free points.
 
@@ -600,41 +592,7 @@ def structure_ba(
     and the camera-point coupling is a single [P, 6, 3] block. ~F x less
     work per LM iteration than `full_ba` with identical semantics
     (`prob.cam_free` is ignored; the free camera is `free_slot`).
-
-    backend: "pallas" = the whole LM loop as one fused kernel
-    (ops/pallas/structure_ba_kernel.py), "xla" = this function's while_loop,
-    "auto" = pallas on TPU else xla.
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        from .pallas.structure_ba_kernel import (
-            pack_structure_problem,
-            structure_ba_planes,
-            unpack_points,
-        )
-
-        P, O = prob.obs_cam.shape
-        Fn = prob.cam_rvec.shape[0]
-        n_res = jnp.sum(
-            prob.obs_valid
-            & prob.cam_in_problem[jnp.clip(prob.obs_cam, 0, Fn - 1)]
-            & prob.point_in_problem[:, None]
-        )
-        pose0, obs, pts, _ = pack_structure_problem(
-            cam, prob, free_slot, init_lambda
-        )
-        out_pose, out_pts = structure_ba_planes(
-            pose0, obs, pts, O, max_iters, float(huber_delta),
-            FUNCTION_TOLERANCE,
-        )
-        return BAResult(
-            cam_rvec=prob.cam_rvec.at[free_slot].set(out_pose[:3]),
-            cam_t=prob.cam_t.at[free_slot].set(out_pose[3:6]),
-            points=unpack_points(out_pts, P),
-            cost=out_pose[6],
-            num_residuals=n_res,
-        )
     fx, cx, cy = cam.fx, cam.cx, cam.cy
     F = prob.cam_rvec.shape[0]
     eye3 = jnp.eye(3)
@@ -740,7 +698,7 @@ def window_ba(
     src/Slam.cpp:202-213) to the W newest keyframes free at once: the drift
     the reference locks into frozen history gets re-solved while it is still
     cheap. Unlike full_ba, every coupling tensor is [P, W, ...] instead of
-    [P, F, ...] — W is 4-8 so the per-iteration HBM traffic stays close to
+    [P, F, ...] — W is 4-8 so the per-iteration memory traffic stays close to
     the single-camera solver's. `prob.cam_free` is ignored; the free set is
     exactly the valid entries of `free_slots` (invalid = -1). Frozen cameras
     anchor through the point blocks as usual.

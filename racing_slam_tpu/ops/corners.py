@@ -1,8 +1,8 @@
-"""Shi-Tomasi (GFTT-style) corner detection as a TPU conv stack.
+"""Shi-Tomasi (GFTT-style) corner detection as a static-shape conv stack.
 
 Replacement for cv::GFTTDetector in the reference extractor
 (src/features/OrbFeatureExtractor.cpp:14-16: max 3000 corners, quality 0.005,
-min distance 7, honors a static mask). The TPU design differs from OpenCV's
+min distance 7, honors a static mask). This design differs from OpenCV's
 greedy sorted-NMS in one deliberate way: instead of a global score sort
 (dynamic-size, sort-heavy, hostile to XLA), keypoints are the per-cell argmax
 of the NMS'd score map over a regular grid. This yields a spatially uniform
@@ -115,8 +115,7 @@ def select_corners_from_maps(
 
     `score` is the (mask/border-gated) raw response used for the parabola
     fit; `peak_score` is the NMS'd response the cells select from. Shared by
-    the XLA path above and the fused Pallas frontend
-    (ops/pallas/frontend_kernel.py).
+    detect_corners above and the SuperPoint frontend (models/superpoint.py).
     """
     H, W = score.shape
     Hp = -(-H // cell) * cell

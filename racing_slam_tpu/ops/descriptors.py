@@ -2,15 +2,15 @@
 
 Replacement for the reference's ORB descriptors (upright BRIEF over a 31 px
 patch — src/features/OrbFeatureExtractor.cpp:18-22; GFTT leaves keypoint
-angle unset so ORB::compute produces *upright* descriptors). The TPU design
+angle unset so ORB::compute produces *upright* descriptors). This design
 uses a dense float descriptor instead of binary Hamming: a Gaussian-blurred
 S x S intensity patch around each keypoint, mean/variance normalized
 (photometric invariance), projected by a fixed random orthonormal matrix to
-D = 128 (the TPU lane width) and L2-normalized. Matching distance is then
+D = 128 and L2-normalized. Matching distance is then
 Euclidean in [0, 2], analogous to the reference's deep-descriptor path
 (L2 norm, max distance 0.7 — src/features/DeepFeatureExtractor.h:12-19).
 
-All of it is gathers + one [K, S^2] x [S^2, D] matmul — pure MXU food.
+All of it is gathers + one [K, S^2] x [S^2, D] matmul.
 """
 
 from __future__ import annotations
@@ -68,13 +68,13 @@ def extract_descriptors(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
       xy: [K, 2] keypoint pixel coords.
     Returns: [K, D] L2-normalized float32 descriptors.
 
-    TPU note: instead of 4 scalar gathers per sample (K * S^2 * 4 random
-    loads — the dominant cost of the naive bilinear formulation), this
+    Instead of 4 scalar gathers per sample (K * S^2 * 4 random loads — the
+    dominant cost of the naive bilinear formulation), this
     fetches one contiguous [T, T] window per keypoint (a single XLA gather
     of K tiles via vmapped dynamic_slice) and expresses the fractional
     sampling grid as two small per-keypoint interpolation matmuls — the
     separable structure of bilinear interpolation. Everything downstream of
-    the window fetch is MXU work.
+    the window fetch is matrix work.
     """
     H, W = img.shape
     K = xy.shape[0]
@@ -131,7 +131,6 @@ def extract_descriptors_cells(
     xy: jnp.ndarray,
     cell: int,
     n_per_cell: int,
-    blurred: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
     """Descriptors for GRID-ORDERED keypoints without per-keypoint gathers.
 
@@ -140,20 +139,17 @@ def extract_descriptors_cells(
     (cell + 2*MARGIN)^2 window is assembled from 3x3 shifted STATIC slices of
     the padded image — pure dense copies — so the per-keypoint work reduces
     to the two separable interpolation matmuls. The vmapped dynamic_slice
-    formulation this replaces (extract_descriptors) profiled as the largest
-    single op of the tracking step (a [K, T, T] random gather every frame).
+    formulation (extract_descriptors) does a [K, T, T] random gather every
+    frame instead.
 
     Requires cell >= 9 and CELL_MARGIN <= cell (margin = one neighbor tile).
-    `blurred` skips the internal gaussian_blur when the caller already has
-    the sigma-BLUR_SIGMA image (the fused Pallas frontend produces it).
     """
     H, W = img.shape
     S = PATCH_SIZE
     M = CELL_MARGIN
     assert M <= cell, "CELL_MARGIN must fit in one neighboring tile"
     T = cell + 2 * M
-    if blurred is None:
-        blurred = gaussian_blur(img, BLUR_SIGMA)
+    blurred = gaussian_blur(img, BLUR_SIGMA)
 
     gh = -(-H // cell)
     gw = -(-W // cell)

@@ -1,6 +1,6 @@
 """Essential-matrix estimation and decomposition, fully batched in JAX.
 
-TPU-native replacement for cv::findEssentialMat / cv::decomposeEssentialMat
+Batched replacement for cv::findEssentialMat / cv::decomposeEssentialMat
 (reference: src/PoseEstimation.cpp:22-59, 73-79). We use the weighted
 normalized 8-point algorithm expressed as a 9x9 symmetric eigenproblem so it
 vmaps cleanly over RANSAC hypothesis batches, and SVD-based decomposition into

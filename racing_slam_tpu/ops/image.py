@@ -26,11 +26,10 @@ def rgb_to_gray(img: jnp.ndarray) -> jnp.ndarray:
 def _conv2d(img: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
     """'same' conv of [H, W] with [kh, kw], f32.
 
-    Single-channel spatial convolutions lower poorly on the TPU MXU (the
-    systolic array wants a contraction dimension, and C=1 gives it none), so
-    this routes through shift-and-add: one padded slice + FMA per tap. For
-    the small separable kernels used here (3-15 taps per axis) that is pure
-    VPU work at full bandwidth.
+    Single-channel spatial convolutions give a matrix unit no contraction
+    dimension (C=1), so this routes through shift-and-add: one padded slice
+    + FMA per tap, which XLA fuses into elementwise kernels. The kernels
+    used here are small and separable (3-15 taps per axis).
     """
     kh, kw = kernel.shape
     ph, pw = kh // 2, kw // 2
@@ -84,8 +83,8 @@ def gaussian_blur(img: jnp.ndarray, sigma: float) -> jnp.ndarray:
 def max_pool_same(img: jnp.ndarray, size: int) -> jnp.ndarray:
     """size x size max filter, 'same' padding (for NMS).
 
-    Separable shift-max (size taps per axis) instead of lax.reduce_window,
-    whose stride-1 'SAME' windows are slow on TPU."""
+    Separable shift-max (size taps per axis) instead of lax.reduce_window:
+    elementwise maxima that fuse with their neighbours."""
     H, W = img.shape
     p = size // 2
 

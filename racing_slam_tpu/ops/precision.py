@@ -1,9 +1,10 @@
 """Matmul-precision control for geometry kernels.
 
-On TPU, f32 matmuls/einsums default to bf16 MXU passes. That is the right
-trade for neural nets, but geometry (8-point constraint matrices, Sampson
-scores, DLT normal matrices, pose chains) loses ~3 decimal digits and
-sub-pixel thresholds become meaningless. Every geometry entry point is
+On an NVIDIA GPU, an f32 matmul/einsum at the default precision may run in
+TF32 on the tensor cores: 10 mantissa bits, about three decimal digits. That
+is the right trade for neural nets, but geometry (8-point constraint
+matrices, Sampson scores, DLT normal matrices, pose chains, reprojection
+errors) loses the digits that sub-pixel thresholds depend on. Every geometry entry point is
 wrapped with @f32_precision so its traced matmuls run at HIGHEST precision,
 while model code elsewhere keeps the fast default.
 """

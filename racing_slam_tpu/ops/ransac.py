@@ -1,6 +1,6 @@
 """Vmapped hypothesis-batch RANSAC for relative pose from 2D-2D matches.
 
-TPU-native replacement for cv::findEssentialMat(RANSAC) + the reference's
+Static-shape replacement for cv::findEssentialMat(RANSAC) + the reference's
 cheirality disambiguation (src/PoseEstimation.cpp:22-59, 61-93). Instead of a
 sequential adaptive RANSAC loop, a fixed batch of H hypotheses is estimated
 and scored in parallel (one vmapped 8-point solve + Sampson scoring per
@@ -60,9 +60,8 @@ def _sample_minimal_weights(
     u = jnp.where(mask[None, :], u, -jnp.inf)
 
     # Select the top-8 by 8 rounds of argmax + mask-out: identical subset
-    # distribution to lax.top_k but compiles orders of magnitude faster on
-    # TPU (top_k over a large trailing dim triggers a pathological sort
-    # lowering; argmax is a plain reduction).
+    # distribution to lax.top_k, built from plain reductions instead of a
+    # sort over the large trailing dim.
     def body(_, carry):
         u, w = carry
         idx = jnp.argmax(u, axis=-1)  # [H]

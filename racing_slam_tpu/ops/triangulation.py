@@ -1,6 +1,6 @@
 """Batched two-view DLT triangulation with validity filtering.
 
-TPU-native replacement for the reference triangulation path
+Batched replacement for the reference triangulation path
 (src/Triangulation.cpp:37-98, which wraps cv::triangulatePoints): instead of
 per-point SVD on dynamically-sized vectors, we triangulate ALL matches at once
 as a batched 4x4 symmetric eigenproblem and return a static-shape validity
@@ -45,10 +45,10 @@ def _dlt_inhomogeneous(
 
     A is the standard DLT stack (u * P[2] - P[0]; v * P[2] - P[1]) per view.
     Instead of the homogeneous null-space (cv::triangulatePoints solves it by
-    per-point SVD; a batched jnp.linalg.eigh over [N, 4, 4] profiled as ~10%
-    of the whole tracking step on TPU), fix w = 1 and solve the 3-unknown
-    least squares A[:, :3] X = -A[:, 3] via closed-form 3x3 normal equations
-    (adjugate inverse) — pure VPU arithmetic, no batched eigensolver. The
+    per-point SVD; a batched jnp.linalg.eigh over [N, 4, 4] is an iterative
+    solver per point), fix w = 1 and solve the 3-unknown least squares
+    A[:, :3] X = -A[:, 3] via closed-form 3x3 normal equations (adjugate
+    inverse) — elementwise arithmetic, no batched eigensolver. The
     inhomogeneous form only degrades for points at infinity, which the
     parallax and reprojection filters below reject anyway
     (src/Triangulation.cpp:76-92).

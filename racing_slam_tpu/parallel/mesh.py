@@ -24,11 +24,10 @@ def initialize_distributed(
     """Multi-host entry point: jax.distributed.initialize from args or env.
 
     The reference has no communication backend at all (SURVEY.md §2.12-bis;
-    vcpkg.json lists no MPI/NCCL); pod-scale runs here ride JAX's built-in
-    distributed runtime over DCN. Call this ONCE per process before any
-    backend use, then `jax.devices()` is the GLOBAL device list and
-    make_mesh() builds pod-wide meshes (hosts x chips laid out by JAX so ICI
-    neighbors stay adjacent).
+    vcpkg.json lists no MPI/NCCL); multi-host runs here ride JAX's built-in
+    distributed runtime. Call this ONCE per process before any backend use,
+    then `jax.devices()` is the GLOBAL device list and make_mesh() builds
+    meshes over every host's devices.
 
     Configuration precedence: explicit args > SLAM_COORDINATOR /
     SLAM_NUM_PROCESSES / SLAM_PROCESS_ID env vars > cluster auto-detection

@@ -1,7 +1,7 @@
 """Data-parallel multi-sequence tracking over a (possibly multi-host) mesh.
 
 The reference processes exactly one video in one thread (src/main.cpp:72-111).
-The TPU deployment shape is a fleet: S independent sequences tracked
+The multi-device deployment shape is a fleet: S independent sequences tracked
 concurrently, each owning its own SlamState, sharded over the mesh's 'seq'
 axis — pure data parallelism with zero cross-sequence communication (XLA
 inserts none: every collective-free op is elementwise in the seq axis).
@@ -10,8 +10,12 @@ axis) this gives the 2-D scale-out mesh: seq x lm.
 
 Design notes:
 - The per-sequence program is the SAME fused step the single-chip engine runs
-  (slam.pipeline.slam_step_batch); vmap lifts it over the sequence axis and
+  (slam.pipeline.slam_step_batch); vmap lifts it over the sequence axis,
+  shard_map runs it per device on that device's block of sequences, and
   NamedSharding('seq') places each sequence's state/frames on its device.
+  shard_map (rather than leaving the split to the SPMD partitioner) keeps
+  the Pallas kernels of the step, which the partitioner cannot split,
+  local to each device.
   Under vmap, lax.cond lowers to select (both branches execute) — the price
   of lockstep SPMD tracking; keyframe commits are a minority of frames, and
   all sequences share one compiled program.
@@ -100,10 +104,18 @@ def multi_sequence_step(
         )(states, imgs, keys, active)
 
     sh = seq_sharding(mesh, axis)
-    # A single sharding acts as a pytree prefix: every leaf of the states /
-    # infos pytrees gets its leading axis placed on `axis`.
-    return jax.jit(
+    spec = P(axis)
+    # A single sharding/spec acts as a pytree prefix: every leaf of the
+    # states / infos pytrees gets its leading axis placed on `axis`.
+    local = jax.shard_map(
         stepped,
+        mesh=mesh,
+        in_specs=(spec, spec, spec, spec, P()),
+        out_specs=(spec, spec),
+        check_vma=False,
+    )
+    return jax.jit(
+        local,
         in_shardings=(sh, sh, sh, sh, None),
         out_shardings=(sh, sh),
     )

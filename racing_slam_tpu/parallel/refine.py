@@ -110,8 +110,8 @@ def apply_refinement(state: SlamState, res: BAResult) -> SlamState:
 
     T_old = se3.pose_matrix(kfs.rvec[slot], kfs.t[slot])
     T_new = se3.pose_matrix(res.cam_rvec[slot], res.cam_t[slot])
-    # se3.compose is f32_precision-wrapped; bare `@` here would run the 4x4
-    # chain as bf16 MXU passes on TPU and perturb the tracking seed.
+    # se3.compose is f32_precision-wrapped; bare `@` here could run the 4x4
+    # chain in TF32 and perturb the tracking seed.
     corr = se3.compose(se3.inverse(T_old), T_new)
     T_last = se3.compose(se3.pose_matrix(state.last_rvec, state.last_t), corr)
     last_rvec, last_t = se3.rt_from_matrix(T_last)

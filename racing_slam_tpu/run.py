@@ -69,9 +69,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="absolute keyframe-commit floor (0 = the "
                         "reference's purely relative 0.9 rule)")
     p.add_argument("--match-backend", default="auto",
-                   choices=("auto", "pallas", "banded", "xla"),
-                   help="guided-matcher backend; 'banded' = grid-hash "
-                        "spatial banding for large map capacities")
+                   choices=("auto", "pallas", "xla"),
+                   help="guided-matcher backend (ops.pallas.resolve_backend)")
     p.add_argument("--local-ba-window", type=int, default=1,
                    help="keyframes freed by the commit-time local BA: 1 = "
                         "the reference's newest-only shape "

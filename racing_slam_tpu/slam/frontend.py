@@ -14,10 +14,9 @@ The classical frontend corresponds to the ORB path; the learned frontend
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
-from ..ops.corners import detect_corners, select_corners_from_maps
+from ..ops.corners import detect_corners
 from ..ops.descriptors import MAX_DISTANCE, extract_descriptors_cells
 from ..ops.matching import match_frames
 from .state import Features
@@ -48,15 +47,13 @@ class LightGlueMatcher:
     # descriptors the trained matcher reaches precision .87 / recall .98
     # (vs .93/.95 for mutual-1NN — it proposes more, recovering matches
     # the distance gate drops); in-pipeline both trained pairings track
-    # the 304-frame bench at 1.2-1.4% full-trajectory ATE (BASELINE.md).
+    # the 304-frame bench at 1.2-1.4% full-trajectory ATE.
     def __init__(self, params, image_size: tuple[float, float],
                  threshold: float = 0.35, attn_backend: str = "auto"):
         self.params = params
         self.image_size = image_size
         self.threshold = threshold
-        # "auto" = fused flash-attention Pallas kernel on TPU
-        # (ops/pallas/attention_kernel.py), XLA einsum elsewhere.
-        self.attn_backend = attn_backend
+        self.attn_backend = attn_backend  # see lightglue.forward
 
     def __call__(self, desc0, xy0, valid0, desc1, xy1, valid1):
         from ..models import lightglue
@@ -68,24 +65,17 @@ class LightGlueMatcher:
 
 
 class ClassicalFrontend:
-    """Shi-Tomasi grid corners + normalized patch descriptors.
-
-    backend: "auto" runs the fused Pallas image stack on TPU (one VMEM pass
-    for response + NMS + descriptor blur; ops/pallas/frontend_kernel.py) and
-    the XLA conv stack elsewhere; "xla"/"pallas" force a path.
-    """
+    """Shi-Tomasi grid corners + normalized patch descriptors."""
 
     def __init__(
         self,
         cell: int = 16,
         n_per_cell: int = 2,
         max_distance: float = MAX_DISTANCE,
-        backend: str = "auto",
     ):
         self.cell = cell
         self.n_per_cell = n_per_cell
         self.max_distance = max_distance
-        self.backend = backend
         from ..ops.descriptors import DESCRIPTOR_DIM
 
         self.descriptor_dim = DESCRIPTOR_DIM
@@ -97,26 +87,9 @@ class ClassicalFrontend:
         return self.n_per_cell * (-(-height // self.cell)) * (-(-width // self.cell))
 
     def extract(self, img: jnp.ndarray, mask: jnp.ndarray | None = None) -> Features:
-        backend = self.backend
-        if backend == "auto":
-            backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-        if backend == "pallas":
-            from ..ops.pallas.frontend_kernel import corner_frontend_fused
-
-            interpret = jax.default_backend() != "tpu"
-            score, peaks, blurred = corner_frontend_fused(
-                img, mask, interpret=interpret
-            )
-            c = select_corners_from_maps(
-                score, peaks, cell=self.cell, n_per_cell=self.n_per_cell
-            )
-            d = extract_descriptors_cells(
-                img, c.xy, self.cell, self.n_per_cell, blurred=blurred
-            )
-        else:
-            c = detect_corners(
-                img, mask=mask, cell=self.cell, n_per_cell=self.n_per_cell
-            )
-            # Cell-ordered keypoints -> gather-free descriptor extraction.
-            d = extract_descriptors_cells(img, c.xy, self.cell, self.n_per_cell)
+        c = detect_corners(
+            img, mask=mask, cell=self.cell, n_per_cell=self.n_per_cell
+        )
+        # Cell-ordered keypoints -> gather-free descriptor extraction.
+        d = extract_descriptors_cells(img, c.xy, self.cell, self.n_per_cell)
         return Features(xy=c.xy, desc=d, valid=c.valid, score=c.score)

@@ -3,7 +3,7 @@
 The reference renders an interactive OpenGL view in a detached thread
 (src/Visualization.{h,cpp}: camera frusta at pose^-1, colored points, image
 pane with keypoint/match overlay rendered by main.cpp:85-104). In a headless
-TPU deployment the equivalents are:
+deployment the equivalents are:
 
 - save_trajectory_plot: 3D matplotlib figure of camera frusta + point cloud;
 - save_overlay: current frame with keypoints and map-match projections drawn

@@ -1,6 +1,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from racing_slam_tpu.models import lightglue, superpoint
 from racing_slam_tpu.utils.synthetic import random_texture, shift_image
@@ -157,42 +158,6 @@ def test_lightglue_training_improves_matching(rng):
     assert hits_t > max(3 * hits_u, 15), (hits_u, hits_t, total_t)
 
 
-def test_flash_attention_matches_xla_mha(rng):
-    """The fused flash kernel (ops/pallas/attention_kernel.py, interpret mode
-    on CPU) must reproduce models.lightglue._mha — including uniform-softmax
-    behavior on fully-masked key sets and ragged (non-tile-multiple) K."""
-    from racing_slam_tpu.ops.pallas.attention_kernel import flash_mha
-
-    Kq, Kk, H, dh = 200, 333, 4, 64
-    q = jnp.asarray(rng.normal(size=(Kq, H, dh)), jnp.float32)
-    k = jnp.asarray(rng.normal(size=(Kk, H, dh)), jnp.float32)
-    v = jnp.asarray(rng.normal(size=(Kk, H, dh)), jnp.float32)
-    mask_q = jnp.asarray(rng.random(Kq) < 0.8)
-    mask_k = jnp.asarray(rng.random(Kk) < 0.8)
-
-    ref = lightglue._mha(q, k, v, mask_q, mask_k, backend="xla")
-    got = jnp.where(
-        mask_q[:, None, None],
-        flash_mha(q, k, v, mask_k, tile_q=64, tile_k=128, interpret=True),
-        0.0,
-    )
-    # bf16 MXU inputs in the kernel vs f32 einsum: tolerance covers input
-    # rounding only (accumulation is f32 in both).
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               atol=2e-2, rtol=2e-2)
-
-    # All keys masked -> uniform attention over v (XLA softmax semantics).
-    none = jnp.zeros((Kk,), bool)
-    ref0 = lightglue._mha(q, k, v, mask_q, none, backend="xla")
-    got0 = jnp.where(
-        mask_q[:, None, None],
-        flash_mha(q, k, v, none, tile_q=64, tile_k=128, interpret=True),
-        0.0,
-    )
-    np.testing.assert_allclose(np.asarray(got0), np.asarray(ref0),
-                               atol=2e-2, rtol=2e-2)
-
-
 def test_xla_flash_attention_matches_dense(rng):
     """The lax.scan online-softmax path (_flash_mha_xla, the "auto" default)
     must reproduce the dense einsum path to f32 accuracy — including the
@@ -212,10 +177,7 @@ def test_xla_flash_attention_matches_dense(rng):
                                    atol=1e-5, rtol=1e-5)
 
 
-def test_lightglue_pallas_backend_matches_xla(rng):
-    """Full assignment_scores parity between the XLA and flash-kernel
-    attention backends (interpret mode on CPU)."""
-    K0, K1 = 96, 128
+def _lightglue_inputs(rng, K0=96, K1=128):
     params = lightglue.init_params(
         jax.random.PRNGKey(1), in_dim=32, dim=64, n_layers=2
     )
@@ -225,15 +187,28 @@ def test_lightglue_pallas_backend_matches_xla(rng):
     xy1 = jnp.asarray(rng.uniform(0, 320, size=(K1, 2)), jnp.float32)
     v0 = jnp.asarray(rng.random(K0) < 0.9)
     v1 = jnp.asarray(rng.random(K1) < 0.9)
+    return params, d0, xy0, v0, d1, xy1, v1
 
+
+def test_lightglue_flash_backend_matches_dense(rng):
+    """Full assignment_scores parity between the dense einsum attention and
+    the "auto" (lax.scan online-softmax) attention."""
+    args = _lightglue_inputs(rng)
     s_ref, m0r, m1r = lightglue.assignment_scores(
-        params, d0, xy0, v0, d1, xy1, v1, (320.0, 240.0), attn_backend="xla"
+        *args, (320.0, 240.0), attn_backend="xla"
     )
-    s_got, m0g, m1g = lightglue.assignment_scores(
-        params, d0, xy0, v0, d1, xy1, v1, (320.0, 240.0),
-        attn_backend="pallas_interpret",
-    )
+    s_got, m0g, m1g = lightglue.assignment_scores(*args, (320.0, 240.0))
     np.testing.assert_allclose(np.asarray(s_got), np.asarray(s_ref),
-                               atol=3e-2, rtol=5e-2)
-    np.testing.assert_allclose(np.asarray(m0g), np.asarray(m0r), atol=2e-2)
-    np.testing.assert_allclose(np.asarray(m1g), np.asarray(m1r), atol=2e-2)
+                               atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(m0g), np.asarray(m0r), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(m1g), np.asarray(m1r), atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_interpret"])
+def test_removed_attention_backend_raises(rng, backend):
+    """The attention kernel is gone; its backend names are rejected."""
+    with pytest.raises(ValueError):
+        lightglue.assignment_scores(
+            *_lightglue_inputs(rng, 16, 16), (320.0, 240.0),
+            attn_backend=backend,
+        )

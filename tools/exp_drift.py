@@ -2,7 +2,7 @@
 
 Runs the bench-identical pipeline over a long synthetic sequence, pausing at
 checkpoints to record ATE-over-live-keyframes as a fraction of trajectory
-length. Drives the VERDICT r2 question: does periodic global refinement
+length. Asks: does periodic global refinement
 (SlamConfig.refine_every_frames) stop drift growing with sequence length?
 
 Usage:
@@ -30,7 +30,9 @@ def main():
     p.add_argument("--monitor-every", type=int, default=1)
     p.add_argument("--local-ba-window", type=int, default=1)
     p.add_argument("--backends", default="auto",
-                   help="auto|xla — force all kernel backends")
+                   choices=("auto", "pallas", "xla"),
+                   help="matching and motion-BA backends "
+                        "(ops.pallas.resolve_backend)")
     p.add_argument("--essential", action="store_true",
                    help="essential-matrix initial pose instead of constant-position")
     p.add_argument("--radius", type=float, default=28.0,
@@ -45,9 +47,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/rslam_jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from racing_slam_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     from racing_slam_tpu.ops.camera import Camera
     from racing_slam_tpu.slam.config import SlamConfig
@@ -87,7 +89,6 @@ def main():
         local_ba_window=args.local_ba_window,
         matching_backend=args.backends,
         ba_backend=args.backends,
-        frontend_backend=args.backends,
     )
     slam = Slam(cam, ArraySource(seq.frames), cfg)
     assert slam.initialize()

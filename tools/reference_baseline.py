@@ -40,6 +40,7 @@ so frames/s and ATE are directly comparable. Prints one JSON line to stdout.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from collections import defaultdict
@@ -439,11 +440,11 @@ def run_ba(K, free_frames, frozen_frames, points, optimize_points):
 
 
 def main():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import jax
 
     # The synthetic-world renderer imports jax-adjacent modules; keep this
-    # measurement entirely on CPU (and off the TPU chip bench.py may be using).
+    # measurement entirely on CPU (and off the card bench.py may be using).
     jax.config.update("jax_platforms", "cpu")
     from racing_slam_tpu.ops.camera import Camera
     from racing_slam_tpu.utils.metrics import ate_rmse
